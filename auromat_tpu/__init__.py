@@ -1,14 +1,15 @@
 """
-auromat_tpu — a TPU-native (JAX/XLA/Pallas) aurora georeferencing framework.
+auromat_tpu — a JAX/XLA aurora georeferencing framework for accelerators.
 
 A ground-up redesign of the capabilities of ESA's AUROMAT toolkit
-(reference: /root/reference/auromat) for TPU hardware:
+(reference: auromat) as device computations, run on an NVIDIA GPU:
 
 * the per-pixel camera->sky->Earth georeferencing chain (WCS TAN projection,
   ray/ellipsoid intersection, frame rotations, Bowring geodetic conversion)
   is a fused, jit-compiled device computation (`auromat_tpu.ops.georef`),
-* regridding onto fixed plate-carree grids is a device binning kernel
-  (`auromat_tpu.ops.regrid`),
+* regridding onto fixed plate-carree grids is device binning
+  (`auromat_tpu.ops.regrid`; the route per backend is chosen in
+  `auromat_tpu.backend`),
 * frame batches `vmap`/`pjit` over `jax.sharding.Mesh` axes
   (`auromat_tpu.parallel`),
 * file I/O (FITS/CDF/netCDF/images), TLE ephemeris and star-field solving
@@ -16,8 +17,8 @@ A ground-up redesign of the capabilities of ESA's AUROMAT toolkit
 
 Precision note: the library enables JAX x64 support at import time. Geodetic
 parity with the CPU reference (<1e-6 deg) requires float64 in the coordinate
-chain; on TPU hardware the hot kernels use float32 with compensated
-("double-float") arithmetic instead — see `auromat_tpu.ops.dfloat`.
+chain: native float64, or float32 with compensated ("double-float")
+arithmetic — see `auromat_tpu.ops.dfloat`.
 """
 
 import jax as _jax

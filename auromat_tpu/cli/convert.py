@@ -87,12 +87,13 @@ def build_parser():
                       metavar=("S", "N", "W", "E"),
                       help="restrict the --mosaic grid to this lat/lon box "
                            "(default: global)")
-    proc.add_argument("--platform", choices=["cpu", "tpu", "default"],
+    proc.add_argument("--platform", choices=["cpu", "gpu", "default"],
                       default="cpu",
                       help="jax backend; cpu (default) runs the float64 "
                            "parity path — single-frame conversion is "
-                           "host-latency-bound, the TPU path is for batched "
-                           "sequence processing (auromat_tpu.parallel)")
+                           "host-latency-bound, the GPU path is for batched "
+                           "sequence processing (auromat_tpu.parallel); a "
+                           "platform that fails to initialize is an error")
 
     out = p.add_argument_group("output")
     out.add_argument("--format", choices=["cdf", "netcdf"], default="cdf")
@@ -188,11 +189,9 @@ def convert_mosaic(provider, args, out_folder):
     dp = mesh.shape["dp"]
     batch = max(args.batched or 8, dp)
     batch = -(-batch // dp) * dp
-    import jax
+    from auromat_tpu.backend import mean_bin_method
 
-    # the flagship Pallas binning on TPU; the exact sorted path elsewhere
-    # (Mosaic kernels only run compiled on TPU hardware)
-    bin_method = "pallas" if jax.default_backend() == "tpu" else "sorted"
+    bin_method = mean_bin_method()
     print(f"mosaicking onto a {grid.n_lat} x {grid.n_lon} grid "
           f"({args.mosaic} deg/cell), {dp}-device mesh, burst size {batch}, "
           f"{bin_method} binning")
@@ -232,30 +231,23 @@ def main(argv=None):
         # entry = default): host-side f64 math (mapping lazies, ASI
         # reprojection, pole rotation) pins itself to the CPU device via
         # utils.host_f64_device, which needs jax.devices("cpu") to exist
-        platforms = (args.platform if args.platform == "cpu"
-                     else f"{args.platform},cpu")
+        # "cuda", not the "gpu" alias: jax expands "gpu" to cuda AND rocm
+        # and fails when either plugin is missing
+        platforms = "cpu" if args.platform == "cpu" else "cuda,cpu"
+        # a conversion that silently ran on another backend would not be
+        # the one asked for: an unavailable platform (or a process whose
+        # backend is already initialized with another one) is an error
         try:
             jax.config.update("jax_platforms", platforms)
-            jax.devices()  # init now: surface a broken selection here
+            got = jax.devices()[0].platform  # init now
         except RuntimeError as e:
-            # e.g. a machine whose accelerator registers under an
-            # experimental platform name (the requested one fails to
-            # initialize): fall back to jax's own default selection,
-            # which picks the registered accelerator. The fallback
-            # update gets its own guard: if the ORIGINAL error was
-            # "backend already initialized", the second update raises
-            # the same thing and must degrade to a warning, not a crash
-            try:
-                jax.config.update("jax_platforms", "")
-            except Exception as e2:
-                print(f"warning: cannot reset platform selection: {e2}",
-                      file=sys.stderr)
-            print(f"warning: platform {args.platform!r} failed to "
-                  f"initialize ({e}); using jax default selection",
-                  file=sys.stderr)
-        except Exception as e:  # backend already initialised
-            print(f"warning: cannot select platform {args.platform}: {e}",
-                  file=sys.stderr)
+            print(f"error: platform {args.platform!r} failed to "
+                  f"initialize: {e}", file=sys.stderr)
+            return 2
+        if got != args.platform:
+            print(f"error: platform {args.platform!r} requested, but JAX "
+                  f"runs on {got!r}", file=sys.stderr)
+            return 2
     source_type = detect_source_type(args.folder)
     print(f"detected source type: {source_type}")
     provider = make_provider(source_type, args.folder, args.altitude)

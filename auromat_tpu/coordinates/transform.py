@@ -111,8 +111,8 @@ def apply_rotation(mat, x, y, z):
 
 def apply_rotation_vecs(mat, vecs):
     """Apply a 3x3 rotation to an (..., 3) array of vectors."""
-    # HIGHEST: the TPU MXU otherwise truncates f32 operands to bf16 —
-    # fatal for the <=11-decimal geodetic accuracy contract on device
+    # HIGHEST: a GPU otherwise may run an f32 einsum in TF32 (~3 decimal
+    # digits) — fatal for the <=11-decimal geodetic accuracy contract
     return jnp.einsum("ij,...j->...i", jnp.asarray(mat), vecs,
                       precision=jax.lax.Precision.HIGHEST)
 

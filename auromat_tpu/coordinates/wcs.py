@@ -1438,14 +1438,12 @@ def pix2world_dirs(wcs, px, py, origin=0):
     """Pixel coordinates -> unit ICRS direction COMPONENTS (vx, vy, vz)
     for any supported projection — the planar form of
     :func:`pix2world_cartesian`. Hot per-pixel consumers (the generic
-    georef chain) use this: the stacked (..., 3) form puts the component
-    axis on the TPU lane dimension, and slicing it back costs a relayout
-    per component (measured ~15 ms on the 12 MP frame)."""
+    georef chain) use this: slicing the stacked (..., 3) form back into
+    components costs a copy per component."""
     # header constants ride as PYTHON floats (weak-typed): the chain then
     # computes in the dtype of px/py. With the f64 np arrays used before,
-    # an f32 TPU call silently promoted every per-pixel op to f64 — which
-    # XLA-TPU EMULATES (measured: 77 ms for the 12 MP ZEA georef vs
-    # 5.8 ms in true f32). The f64 CPU parity path is bit-identical
+    # an f32 call silently promoted every per-pixel op to f64, a far
+    # slower rate than f32 on an accelerator. The f64 CPU parity path is bit-identical
     # either way (float() preserves the value; f64 inputs keep f64 math).
     dx = px - float(wcs.px_ref - (1 - origin))
     dy = py - float(wcs.py_ref - (1 - origin))

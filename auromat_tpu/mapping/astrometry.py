@@ -73,13 +73,12 @@ def create_mapping(wcs_header, img, camera_pos, photo_time: datetime,
     :param fast_center: centre coords as 4-corner means (reference
         fastCenterCalculation, astrometry.py:154-160); mask invariants then
         hold by construction. Ignored by the df64 path (exact centres).
-    :param dtype: device compute dtype — float64 for CPU parity, float32
-        for TPU throughput, or the string ``"df64"`` for the double-float
-        chain: full-precision (<1e-6 deg, measured ~1e-10) production
-        mappings computed ON TPU HARDWARE, covering every exported
-        per-pixel variable (lat/lon/elevation/MLat/MLT; tools/
-        onchip_parity.py holds the measured on-chip numbers). On TPUs
-        plain float64 silently computes in f32 — use "df64" there.
+    :param dtype: device compute dtype — float64 for full precision
+        (native f64 on the CPU and the GPU), float32 for throughput, or the
+        string ``"df64"`` for the double-float chain: full-precision
+        (<1e-6 deg) mappings from f32 arithmetic, covering every exported
+        per-pixel variable (lat/lon/elevation/MLat/MLT; chip_smoke.py
+        checks both on the GPU against the f64 goldens).
     """
     img = np.asarray(img)
     h, w = img.shape[0], img.shape[1]

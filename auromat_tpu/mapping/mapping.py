@@ -470,7 +470,7 @@ class Mapping:
 
     def _mlat_mlt(self, lats_deg, lons_deg, mask):
         # host f64 regardless of the default backend (magnetic-coordinate
-        # parity; TPU backends degrade f64 -> f32)
+        # parity, bit-identical to the CPU goldens)
         with utils.host_f64_device():
             x, y, z = geodetic_to_ecef(
                 np.deg2rad(lats_deg), np.deg2rad(lons_deg), self._altitude,

@@ -169,7 +169,7 @@ def get_mapping(image_path, altitude=110, simple=False, cal_path=None):
             az, el = fisheye_az_el(cal, w, corner=corner)
             dirs = az_el_to_geo_directions(cal, az, el)
             # host f64 regardless of the default backend (fisheye chain
-            # parity; TPU backends degrade f64 -> f32)
+            # parity, bit-identical to the CPU goldens)
             with host_f64_device():
                 inter = np.asarray(
                     ellipsoid_line_intersection(

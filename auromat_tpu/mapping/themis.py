@@ -160,10 +160,9 @@ def reproject_batch(lat_lon_asi, lats_ref, lons_ref, height_ref, height_new):
 
     Like :func:`reproject`, the math is pinned to the host CPU backend
     when another backend is the default (``utils.host_f64_device``):
-    calibration reprojection needs float64 (TPUs have none — f64 silently
-    degrades to f32 there, which would break the batched==serial
-    equivalence), and at 24 x 256 x 256 points it is latency-, not
-    compute-bound.
+    calibration reprojection needs float64 bit-identical to the serial
+    path (the batched==serial equivalence), and at 24 x 256 x 256 points
+    it is latency-, not compute-bound (moving it on device is ROADMAP A7).
 
     :param lat_lon_asi: (S, 2) station geodetic lat/lon degrees
     :param lats_ref, lons_ref: (S, h, w) calibration grids, degrees

@@ -1,18 +1,17 @@
-"""Double-float ("df64") arithmetic: ~f64 precision from f32 pairs on TPU.
+"""Double-float ("df64") arithmetic: ~f64 precision from f32 pairs.
 
-TPUs have no native float64 (the XLA TPU backend silently degrades f64 math
-to f32 here). The georeferencing parity budget (<1e-6 deg, SURVEY.md section
-7 "hard parts") needs ~0.1 m positions on a 6.4e6 m sphere — beyond f32's
-~0.4 m representational floor, and even a single f32 arctan rounds at ~6e-6
-deg. This module implements error-free-transformation arithmetic on (hi, lo)
+The georeferencing parity budget (<1e-6 deg, SURVEY.md section 7 "hard
+parts") needs ~0.1 m positions on a 6.4e6 m sphere — beyond f32's ~0.4 m
+representational floor, and even a single f32 arctan rounds at ~6e-6 deg.
+This module implements error-free-transformation arithmetic on (hi, lo)
 f32 pairs (Dekker 1971 / Knuth two-sum; no FMA assumed) plus the
 transcendentals the geodetic chain needs (sqrt, sincos, and atan/atan2 via
-a 17-entry table reduction + one df division + short f32 series).
+a 17-entry table reduction + one df division + short f32 series), for
+devices whose f64 rate is far below their f32 rate. Whether native f64
+replaces it on a GPU is an open measurement (ROADMAP A6).
 
 Accuracy: basic ops ~1e-14 relative; atan/atan2 ~2e-12 rad absolute —
-comfortably inside the 1e-6 deg (1.7e-8 rad) budget. The full df64
-georeference chain runs 12M pixels in ~24 ms on one v5e chip (was 51 ms
-with the earlier sincos-series atan).
+comfortably inside the 1e-6 deg (1.7e-8 rad) budget.
 """
 
 from typing import NamedTuple
@@ -74,39 +73,13 @@ def _split(a):
     safe under jit: XLA CPU strips optimization barriers and LLVM contracts
     `t - a` into fma(a, 4097, -a), which uses the UNROUNDED product and
     collapses the split (hi ~= a, lo ~= 0), silently degrading df64 to f32.
-    Bit masking has no multiply to contract and is cheaper on the TPU VPU.
+    Bit masking has no multiply to contract.
     12x12-bit products fit exactly in f32's 24-bit significand."""
     bits = jax.lax.bitcast_convert_type(a, jnp.uint32)
     hi = jax.lax.bitcast_convert_type(
         bits & np.uint32(0xFFFFF000), jnp.float32
     )
     return hi, a - hi
-
-
-def _tpu_compilation_target():
-    """True when tracing-for-TPU is the best available signal.
-
-    ``jax.default_backend()`` alone is wrong on a TPU machine when the df
-    chain is deliberately placed on CPU (``jax.default_device(cpu)`` — the
-    cross-check pattern in tools/onchip_parity.py): the trace would pick
-    the Dekker residual but compile with XLA-CPU, where LLVM's fma
-    contraction silently breaks the EFT. The default-device override is
-    therefore honoured. Residual hole: arrays explicitly committed to a
-    CPU device while the default device is a TPU still trace the Dekker
-    branch — don't do that; route CPU work through jax.default_device.
-    """
-    if jax.default_backend() != "tpu":
-        return False
-    dd = jax.config.jax_default_device
-    if dd is not None:
-        # jax accepts both a Device object and its platform STRING
-        # ("cpu"); a string has no .platform attribute, and falling into
-        # the "tpu" default here would trace the CPU-unsafe Dekker branch
-        # into an XLA-CPU compilation
-        platform = dd if isinstance(dd, str) else getattr(dd, "platform", "tpu")
-        if platform != "tpu":
-            return False
-    return True
 
 
 def _two_prod(a, b):
@@ -132,18 +105,6 @@ def _two_prod(a, b):
     p12 = a_hi * b_lo
     p21 = a_lo * b_hi
     p22 = a_lo * b_lo
-    if _tpu_compilation_target():
-        # classic Dekker residual: e = ((p11 - p) + p12 + p21) + p22 with
-        # p = fl(a*b) — exact given exact partial products (Dekker 1971),
-        # and ~half the ops of the two_sum chain below. SAFE ONLY on TPU:
-        # the `p11 - p` difference is exactly the shape XLA-CPU/LLVM
-        # contracts into fma with the UNROUNDED a*b (the documented EFT
-        # breaker); Mosaic/XLA-TPU performs no such contraction —
-        # re-verified on-chip against the f64 goldens (see
-        # tools/onchip_parity.py) whenever this file changes.
-        p = a * b
-        e = ((p11 - p) + p12 + p21) + p22
-        return p, e
     s, e1 = _two_sum(p12, p21)
     p, e2 = _two_sum(p11, s)
     p, e3 = _quick_two_sum(p, p22)
@@ -185,9 +146,6 @@ def div(x: DF, y: DF) -> DF:
     # residuals written as add(neg(m), x) so a literal-constant numerator
     # (div(df(1), y) — reciprocals!) never reaches add() as the first
     # operand (the XLA CPU folding hazard documented on add()).
-    # (A one-reciprocal-three-multiplies variant measured EQUAL speed on
-    # v5e — the VPU divide is not the cost — so the plainly-rounded
-    # per-term divides stay.)
     q1 = x.hi / y.hi
     r = add(neg(mul(df(q1), y)), x)
     q2 = r.hi / y.hi
@@ -332,8 +290,8 @@ def _atan_core(num: DF, den: DF) -> DF:
     r = DF(*_quick_two_sum(q1, q2))
     r = DF(jnp.where(safe, r.hi, 0.0), jnp.where(safe, r.lo, 0.0))
     # table lookup as a fused select-chain: 17 compare+selects per limb
-    # collapse into ONE elementwise pass (bit-identical to the earlier
-    # one-hot + Precision.HIGHEST matmul, without the MXU hazard)
+    # collapse into ONE elementwise pass (no matmul, so no reduced-
+    # precision dot can touch the table values)
     ta_hi = jnp.full_like(k, float(_ATAN_HI[0]))
     ta_lo = jnp.full_like(k, float(_ATAN_LO[0]))
     for i in range(1, 17):

@@ -1,40 +1,20 @@
-"""Fused georeference + regrid: the single-chip production fast path.
+"""Fused georeference + regrid: the single-device production fast path.
 
 One jitted step runs the full reference pipeline "forward pass"
 (SURVEY.md call stacks 3.1 + 3.2: pixel grid -> TAN unproject -> ray/
 ellipsoid intersection -> GEO rotation -> Bowring lat/lon + elevation ->
-fixed-grid mean binning) for a 12 MP frame in ~8.2 ms on one v5e chip
-(1470 MPix/s — above the 1205 MPix/s north star), vs ~150 ms for the
-sorted XLA fallback.
+fixed-grid mean binning). The georef chain and the bin-index arithmetic are
+elementwise, so XLA fuses them into the pass that feeds the binning; the
+binning is the plain XLA route :func:`auromat_tpu.backend.mean_bin_method`
+picks for the device (scatter-add on a GPU, the sorted oracle elsewhere).
 
-Structure (what made it fast — each step measured on v5e):
-- georeferencing stays ONE fused XLA elementwise pass (~3.2 ms; the
-  atan/atan2/arccos transcendentals are NOT the bottleneck — an
-  arctan-free tan-space variant measured the same, and Mosaic cannot
-  lower atan anyway);
-- bin indices, channel prep and per-tile window bounds fuse into that
-  same pass (reshape-based tile min/max; no materialized transposes —
-  an earlier variant that pre-tiled operands in XLA spent 4.6 ms on pure
-  data movement);
-- the binning kernel (regrid_pallas._kernel_v5-style) reads raw
-  (16, 256) tiles and relayouts only the SMALL per-tile vectors to a
-  pixels-on-lanes layout in-kernel (~20k elements), builds both one-hots
-  lane/sublane-native, and contracts on the MXU with a lanes-lanes
-  dot_general; earlier kernels that reshaped the BIG one-hot/product
-  tensors paid ~7 ms in Mosaic relayouts;
-- accumulation is windowed in grid rows AND 128-wide grid columns; the
-  (row_window, col_window) pair linearizes onto the accumulator's
-  leading dim so the dynamic store stays on dim 0 (Mosaic constraint).
-
-Bin-index parity: iy/ix come from ops.regrid.bin_indices on the f32
-lat/lon chain — identical arithmetic to every XLA binning path, so
-results are bit-identical to bin_partial(..., 'sorted') on the same
-inputs (verified on-chip for the 12 MP frame). vs the f64 CPU reference,
-the f32 chain places a pixel within ~4e-5 deg of its f64 position, so
-only pixels within that band of a 100-arcsec cell edge (measured
-~1.4e-3 of all pixels) can land in the neighbouring cell; each flip
-moves one ~uniform sample between two cell means of ~2000 samples each
-(<0.1% mean perturbation). Full-precision output (1e-6 deg per-pixel
+Bin-index parity: bin indices come from ops.regrid.bin_indices on the f32
+lat/lon chain — identical arithmetic to every XLA binning path. vs the f64
+CPU reference, the f32 chain places a pixel within ~4e-5 deg of its f64
+position, so only pixels within that band of a 100-arcsec cell edge
+(measured ~1.4e-3 of all pixels) can land in the neighbouring cell; each
+flip moves one ~uniform sample between two cell means of ~2000 samples
+each (<0.1% mean perturbation). Full-precision output (1e-6 deg per-pixel
 parity) is the df64 chain in ops.georef. See tests/test_georegrid.py.
 
 Reference: auromat/mapping/astrometry.py:49-212 + auromat/resample.py:
@@ -45,481 +25,50 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
+from auromat_tpu.backend import mean_bin_method
 from auromat_tpu.ops.georef import DynGeorefParams, georef_latlon_dyn
-from auromat_tpu.ops.regrid import (GridSpec, bin_indices, finalize_mean,
-                                    round_up)
-from auromat_tpu.ops.regrid_pallas import ELEV_OFFSET
-N_STACK = 8  # count + R + G + B + elev_hi + 2 elev_frac limbs + pad (vreg-exact)
-
-# default tile/window sizes (fastest of the measured sweep on v5e:
-# (16,256,8) 8.2 ms; (16,128,8) 8.3; (16,512,8) 8.9; (32,512,8) 9.4)
-TILES = (16, 256, 8)
-
-_VMEM_LIMIT = 100 * 1024 * 1024
+from auromat_tpu.ops.regrid import GridSpec, bin_partial, finalize_mean
 
 
-def _kernel(bounds_ref, iy_ref, ix_ref, img_ref, elev_ref, acc_ref, *,
-            n_win_c, tile_h, tile_w, win_r):
-    ti, tj = pl.program_id(0), pl.program_id(1)
-    p = tile_h * tile_w
-
-    @pl.when((ti == 0) & (tj == 0))
-    def _init():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    iy = iy_ref[:]  # (tile_h, tile_w) int32; -1 = invalid/masked/padding
-    ix = ix_ref[:]
-    valid = iy >= np.int32(0)
-    imgv = img_ref[:]  # (3, tile_h, tile_w) f32, 0..255-integral values
-    # NaN data at VALID coordinates contributes 0 (bin_partial contract; a
-    # raw NaN would poison every bin in the window via NaN*0). The scrub
-    # lives IN-kernel: x == x is a free VPU compare on data already being
-    # streamed, where an XLA-side scrub costs a full extra HBM pass.
-    imgv = jnp.where(imgv == imgv, imgv, 0.0)
-    eraw = elev_ref[:]
-    eraw = jnp.where(eraw == eraw, eraw, 0.0)
-    elev = jnp.where(valid, eraw + ELEV_OFFSET, 0.0)
-    el_hi = jnp.floor(elev)  # bf16-exact int part
-    # the fraction is carried as TWO bf16 sub-limbs using a pad channel
-    # (free: the pad lane was already multiplied as zeros): f1 is an exact
-    # multiple of 2^-8, the f2 remainder only rounds below 2^-16 --
-    # elevation sums land in the f32 class instead of bf16's 2^-8
-    frac = elev - el_hi
-    f1 = jnp.floor(frac * 256.0) * (1.0 / 256.0)
-    ones = valid.astype(jnp.float32)
-    imgz = jnp.where(valid[None], imgv, 0.0)
-    zero = jnp.zeros_like(elev)
-    d_stack = jnp.stack([ones, imgz[0], imgz[1], imgz[2],
-                         el_hi, f1, frac - f1, zero], axis=0)
-    # pixels onto lanes: these are the ONLY relayouts in the kernel and
-    # they are tiny (the big one-hot/product tensors below are all built
-    # directly in their native layouts)
-    d_all = d_stack.reshape(1, N_STACK, p).astype(jnp.bfloat16)
-    iyf = iy.reshape(1, p)
-    ixf = ix.reshape(1, p)
-
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (win_r, p), 0)
-    iota_c = jax.lax.broadcasted_iota(jnp.int32, (128, p), 0)
-
-    ntx = pl.num_programs(1)
-    boff = (ti * ntx + tj) * np.int32(4)
-    k_min = bounds_ref[boff]
-    k_max = bounds_ref[boff + np.int32(1)]
-    c_min = bounds_ref[boff + np.int32(2)]
-    c_max = bounds_ref[boff + np.int32(3)]
-
-    def cbody(cw, carry):
-        # out-of-window and invalid pixels (dc < 0 or >= 128) match no
-        # one-hot column and contribute nothing
-        dc = ixf - cw * np.int32(128)
-        ext = (iota_c == dc).astype(jnp.bfloat16)  # (128, p)
-
-        def kbody(k, inner):
-            dr = iyf - k * np.int32(win_r)
-            ey = (iota_r == dr).astype(jnp.bfloat16)  # (win_r, p)
-            # (win_r, 1, p) * (1, 8, p) -> (win_r, 8, p) -> vreg-exact
-            # sublane merge to (win_r*8, p): bf16 products are exact
-            # (one factor 0/1; data channels bf16-exact by contract)
-            a = (ey[:, None, :] * d_all).reshape(win_r * N_STACK, p)
-            s = jax.lax.dot_general(
-                a, ext, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            ).reshape(win_r, N_STACK, 128)
-            base = (k * np.int32(n_win_c) + cw) * np.int32(win_r)
-            acc_ref[pl.ds(base, win_r)] += s
-            return inner
-
-        jax.lax.fori_loop(k_min, k_max + np.int32(1), kbody, np.int32(0))
-        return carry
-
-    jax.lax.fori_loop(c_min, c_max + np.int32(1), cbody, np.int32(0))
-
-
-def _kernel_i8(bounds_ref, iy_ref, ix_ref, img_ref, elev_ref, acc_ref, *,
-               n_win_c, tile_h, tile_w, win_r):
-    """int8-MXU variant of :func:`_kernel` (VERDICT r3 item 2 — the measured
-    experiment, not the assumption).
-
-    Everything rides the MXU's s8 x s8 -> s32 path: data channels are
-    offset by -128 so 0..255 values fit int8 (recovered exactly per bin as
-    ``sum(d) = int_sum + 128*count`` — int32 arithmetic, no rounding), the
-    one-hots are 0/1 int8, and the accumulator is int32 (exact to 2^31
-    where the f32 accumulator of the bf16 kernel starts rounding at 2^24).
-    The elevation fraction is carried as TWO base-256 digit limbs
-    (floor-quantized; per-sample error < 2^-16 — the same error class as
-    the bf16 kernel's rounded second sub-limb, just a floor instead of a
-    round). Count/R/G/B remain bit-exact vs the sorted path.
-    """
-    ti, tj = pl.program_id(0), pl.program_id(1)
-    p = tile_h * tile_w
-
-    @pl.when((ti == 0) & (tj == 0))
-    def _init():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    iy = iy_ref[:]
-    ix = ix_ref[:]
-    valid = iy >= np.int32(0)
-    imgv = img_ref[:]
-    imgv = jnp.where(imgv == imgv, imgv, 0.0)
-    eraw = elev_ref[:]
-    eraw = jnp.where(eraw == eraw, eraw, 0.0)
-    elev = jnp.where(valid, eraw + ELEV_OFFSET, 0.0)
-    el_hi = jnp.floor(elev)  # 0..180 integral
-    frac256 = (elev - el_hi) * 256.0
-    f1 = jnp.floor(frac256)  # 0..255 integral
-    f2 = jnp.floor((frac256 - f1) * 256.0)  # 0..255 integral
-    ones = valid.astype(jnp.float32)
-    imgz = jnp.where(valid[None], imgv, 0.0)
-    zero = jnp.zeros_like(elev)
-    # channels 1..6 offset by -128 into int8 range; invalid pixels match no
-    # one-hot row, so their (arbitrary in-range) values contribute nothing
-    d_stack = jnp.stack([ones, imgz[0] - 128.0, imgz[1] - 128.0,
-                         imgz[2] - 128.0, el_hi - 128.0, f1 - 128.0,
-                         f2 - 128.0, zero], axis=0)
-    d_all = d_stack.reshape(1, N_STACK, p).astype(jnp.int32) \
-                   .astype(jnp.int8)
-    iyf = iy.reshape(1, p)
-    ixf = ix.reshape(1, p)
-
-    iota_r = jax.lax.broadcasted_iota(jnp.int32, (win_r, p), 0)
-    iota_c = jax.lax.broadcasted_iota(jnp.int32, (128, p), 0)
-
-    ntx = pl.num_programs(1)
-    boff = (ti * ntx + tj) * np.int32(4)
-    k_min = bounds_ref[boff]
-    k_max = bounds_ref[boff + np.int32(1)]
-    c_min = bounds_ref[boff + np.int32(2)]
-    c_max = bounds_ref[boff + np.int32(3)]
-
-    def cbody(cw, carry):
-        dc = ixf - cw * np.int32(128)
-        ext = (iota_c == dc).astype(jnp.int8)  # (128, p)
-
-        def kbody(k, inner):
-            dr = iyf - k * np.int32(win_r)
-            # select, not multiply: Mosaic has no i8 arith.muli lowering
-            ey = iota_r == dr  # (win_r, p) bool
-            a = jnp.where(ey[:, None, :], d_all,
-                          np.int8(0)).reshape(win_r * N_STACK, p)
-            s = jax.lax.dot_general(
-                a, ext, dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            ).reshape(win_r, N_STACK, 128)
-            base = (k * np.int32(n_win_c) + cw) * np.int32(win_r)
-            acc_ref[pl.ds(base, win_r)] += s
-            return inner
-
-        jax.lax.fori_loop(k_min, k_max + np.int32(1), kbody, np.int32(0))
-        return carry
-
-    jax.lax.fori_loop(c_min, c_max + np.int32(1), cbody, np.int32(0))
-
-
-def _tile_bounds(iyp, ixp, nty, ntx, tile_h, tile_w, win_r, n_win_r, n_win_c):
-    """Per-tile (kmin, kmax, cmin, cmax) window bounds.
-
-    Same reduction idiom as regrid_pallas._tile_minmax but over axes
-    (1, 3) of the UNtransposed (nty, tile_h, ntx, tile_w) view — sharing
-    the helper would materialize a 100 MB tile transpose (measured 4.6 ms
-    of pure data movement in an earlier variant), so the near-duplication
-    is deliberate.
-    """
-    iyt = iyp.reshape(nty, tile_h, ntx, tile_w)
-    ixt = ixp.reshape(nty, tile_h, ntx, tile_w)
-    vt = iyt >= 0
-    big = jnp.int32(1 << 30)
-
-    def mm(vals, lim):
-        vmin = jnp.min(jnp.where(vt, vals, big), axis=(1, 3))
-        vmax = jnp.max(jnp.where(vt, vals, -1), axis=(1, 3))
-        none = ~vt.any(axis=(1, 3))
-        vmin = jnp.where(none, 0, jnp.clip(vmin, 0, lim - 1))
-        vmax = jnp.where(none, -1, jnp.clip(vmax, -1, lim - 1))
-        return vmin, vmax
-
-    kmin, kmax = mm(iyt // win_r, n_win_r)
-    cmin, cmax = mm(ixt // 128, n_win_c)
-    return jnp.stack([kmin, kmax, cmin, cmax], axis=-1).reshape(-1)
-
-
-def bin_rgbelev_from_indices(grid: GridSpec, iy, ix, img_chw, elev,
-                             tiles=TILES, interpret=False,
-                             slab_budget_bytes=None, compute="bf16"):
-    """Bin (count, R, G, B, elevation) from precomputed bin indices with the
-    flagship v5 kernel — the reusable binning half of the fused step.
-
-    This is the fast-kernel entry the sharded mosaic path uses per shard
-    (each device bins its local samples into the full natural grid; the
-    band routing/reduction happens outside): same kernel, same accumulator
-    layout, same elevation limb-split exactness as the fused single-frame
-    path, so per-shard partials stay bit-identical (counts + integer
-    channels) to the sorted XLA path.
-
-    Grids whose padded accumulator exceeds the VMEM budget run as a loop of
-    lat-slab pallas_calls (each slab re-reads the sample stream; out-of-slab
-    pixels carry iy_rel == -1 and fall into no window) — the same bounded-
-    VMEM strategy as regrid_pallas.bin_partial_pallas, with this kernel.
-    Slab positions are anchored at the samples' occupied lat range (a
-    traced hull base; each slab's rows placed by dynamic_update_slice
-    into a zeros-init output), and slabs
-    outside the hull are skipped at runtime (lax.cond on the iy min/max),
-    so the per-frame cost on a global-scale grid tracks the occupied
-    band, not the grid height — and a typical frame pays ONE kernel pass
-    instead of straddling a static slab boundary.
-
-    :param iy, ix: (h, w) int32 grid row/col per sample; -1 = invalid
-    :param img_chw: (3, h, w) float, integer-valued 0..255 ('uint8' contract)
-    :param elev: (h, w) float elevation; NaN (at valid coords) contributes 0
-    :param compute: 'bf16' (flagship kernel) or 'i8' (int8-MXU variant,
-        :func:`_kernel_i8`; count/R/G/B bit-exact vs bf16, elevation differs
-        below 2^-16 per sample)
-    :returns: count (n_lat, n_lon), sums (n_lat, n_lon, 4) [R, G, B, elev]
-    """
-    tile_h, tile_w, win_r = tiles
-    h, w = iy.shape
-    f32 = jnp.float32
-
-    # NaN data at valid coordinates contributes 0 (bin_partial contract);
-    # the scrub happens IN-kernel (free VPU compare) — no XLA-side pass
-    img_chw = img_chw.astype(f32)
-    elev = jnp.asarray(elev, f32)  # f64 would leak into the x64-off kernel trace
-
-    hp, wp = round_up(h, tile_h), round_up(w, tile_w)
-    pad = ((0, hp - h), (0, wp - w))
-    iyp = jnp.pad(iy, pad, constant_values=-1)
-    ixp = jnp.pad(ix, pad, constant_values=-1)
-    elevp = jnp.pad(elev, pad)
-    imgp = jnp.pad(img_chw, ((0, 0),) + pad)
-    nty, ntx = hp // tile_h, wp // tile_w
-
-    n_lat_pad = max(round_up(grid.n_lat, win_r), win_r)
-    n_lon_pad = round_up(grid.n_lon, 128)
-    n_win_c = n_lon_pad // 128
-    # lat-slab rows per pallas_call so the VMEM accumulator stays bounded
-    if slab_budget_bytes is None:
-        slab_budget_bytes = _VMEM_LIMIT - 16 * 1024 * 1024
-    budget_rows = slab_budget_bytes // (N_STACK * n_lon_pad * 4)
-    slab_rows = max(win_r, min(n_lat_pad, budget_rows // win_r * win_r))
-
-    kern_fn = _kernel_i8 if compute == "i8" else _kernel
-    acc_dtype = jnp.int32 if compute == "i8" else jnp.float32
-    kern = functools.partial(kern_fn, n_win_c=n_win_c, tile_h=tile_h,
-                             tile_w=tile_w, win_r=win_r)
-
-    def slab_call(iy_rel, n_win_r, acc_rows):
-        with jax.enable_x64(False):
-            return pl.pallas_call(
-                kern,
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=1,
-                    grid=(nty, ntx),
-                    in_specs=[
-                        pl.BlockSpec((tile_h, tile_w),
-                                     lambda i, j, bd: (i, j)),
-                        pl.BlockSpec((tile_h, tile_w),
-                                     lambda i, j, bd: (i, j)),
-                        pl.BlockSpec((3, tile_h, tile_w),
-                                     lambda i, j, bd: (0, i, j)),
-                        pl.BlockSpec((tile_h, tile_w),
-                                     lambda i, j, bd: (i, j)),
-                    ],
-                    out_specs=pl.BlockSpec(
-                        (acc_rows, N_STACK, 128), lambda i, j, bd: (0, 0, 0)),
-                ),
-                out_shape=jax.ShapeDtypeStruct(
-                    (acc_rows, N_STACK, 128), acc_dtype),
-                compiler_params=pltpu.CompilerParams(
-                    vmem_limit_bytes=_VMEM_LIMIT),
-                interpret=interpret,
-            )(_tile_bounds(iy_rel, ixp, nty, ntx, tile_h, tile_w, win_r,
-                           n_win_r, n_win_c),
-              iy_rel, ixp, imgp, elevp)
-
-    def post(acc, rows, n_win_r):
-        # window-major accumulator -> natural-layout (count, sums) for THIS
-        # slab. Runs inside the slab cond below so runtime-skipped slabs
-        # emit plain zero FILLS in the final layout instead of paying the
-        # transpose + channel-combine passes over all-zero rows (~85% of a
-        # global-scale grid; at config-5 that was ~3 full-grid HBM passes
-        # of dead traffic per step).
-        acc = acc.reshape(n_win_r, n_win_c, win_r, N_STACK, 128) \
-                 .transpose(0, 2, 3, 1, 4).reshape(rows, N_STACK, n_lon_pad)
-        count = acc[:, 0, : grid.n_lon]
-        sums_k = acc[:, 1:7, : grid.n_lon]
-        if compute == "i8":
-            # undo the -128 channel offset in exact int32 arithmetic, then
-            # convert (exact below 2^24 — the same class as the bf16
-            # kernel's f32 accumulator, which starts rounding there too)
-            sums_k = (sums_k + 128 * count[:, None, :]).astype(jnp.float32)
-            sums_k = jnp.transpose(sums_k, (0, 2, 1))
-            count = count.astype(jnp.float32)
-            el_sum = ((sums_k[..., 3] - ELEV_OFFSET * count)
-                      + sums_k[..., 4] * (1.0 / 256.0)
-                      + sums_k[..., 5] * (1.0 / 65536.0))
-        else:
-            sums_k = jnp.transpose(sums_k, (0, 2, 1))
-            # subtract the offset from the exact-integer limb sum FIRST so
-            # the fraction limbs are added at their own small magnitude
-            el_sum = ((sums_k[..., 3] - ELEV_OFFSET * count)
-                      + sums_k[..., 4] + sums_k[..., 5])
-        sums = jnp.concatenate([sums_k[..., :3], el_sum[..., None]],
-                               axis=-1)
-        return count, sums
-
-    multi_slab = n_lat_pad > slab_rows
-    if not multi_slab:
-        rows = n_lat_pad
-        n_win_r = rows // win_r
-        # no extra select pass over iy in the single-slab case
-        count, sums = post(slab_call(iyp, n_win_r, n_win_r * n_win_c * win_r),
-                           rows, n_win_r)
-        return count[: grid.n_lat], sums[: grid.n_lat]
-
-    # Multi-slab: HULL-ALIGNED virtual slab bases. The kernel is
-    # grid-step-bound (~1.5 us per pixel tile per pass), so every slab
-    # that intersects the samples' occupied lat range re-streams the FULL
-    # tile grid; with static slab positions a 12 MP frame hull (~260 rows
-    # on the 0.05 deg global grid) straddles a slab boundary and pays two
-    # passes. Anchoring slab k at rows [base0 + k*slab_rows, ...) — base0
-    # a traced scalar at the hull start — fits a typical hull in ONE slab
-    # (measured: config-5 binning 8.9 -> ~6.5 ms/frame). Slabs outside
-    # the hull are skipped at runtime (lax.cond), costing NOTHING: each
-    # occupied slab dynamic-update-slices its rows into a zeros-init
-    # output INSIDE the cond (the skipped branch passes the carried
-    # buffers through), so the only full-grid HBM traffic is the single
-    # zeros init — the earlier concat-the-slab-stack + jnp.roll(base0)
-    # placement paid a ~0.5 GB per-slab fill + concat + a ~1 GB roll at
-    # config-5 scale. The output is over-allocated by one slab
-    # (n_lat_pad + slab_rows rows) so the update of the LAST occupied
-    # slab (lo <= max_iy <= n_lat_pad - 1) never hits the
-    # dynamic_update_slice start-index clamp, which would misalign the
-    # write window. Conservative for multi-band sample sets (any slab
-    # inside the hull runs even if locally empty).
-    min_iy = jnp.min(jnp.where(iyp >= 0, iyp, jnp.int32(2**30)))
-    max_iy = jnp.max(iyp)
-    # empty input: min_iy = 2^30 clamps to n_lat_pad-1 >= 0 > max_iy = -1,
-    # so every slab cond is False and the zeros init passes through
-    base0 = jnp.minimum(min_iy, jnp.int32(n_lat_pad - 1))
-    rows = slab_rows
-    n_win_r = rows // win_r
-    acc_rows = n_win_r * n_win_c * win_r
-    count = jnp.zeros((n_lat_pad + slab_rows, grid.n_lon), jnp.float32)
-    sums = jnp.zeros((n_lat_pad + slab_rows, grid.n_lon, 4), jnp.float32)
-    for k in range(-(-n_lat_pad // slab_rows)):
-        lo = base0 + jnp.int32(k * slab_rows)
-        hi = lo + jnp.int32(slab_rows)
-
-        def run(count, sums, lo=lo, hi=hi):
-            iy_rel = jnp.where((iyp >= lo) & (iyp < hi),
-                               iyp - lo, jnp.int32(-1))
-            cnt_s, sums_s = post(slab_call(iy_rel, n_win_r, acc_rows),
-                                 rows, n_win_r)
-            return (jax.lax.dynamic_update_slice_in_dim(count, cnt_s, lo, 0),
-                    jax.lax.dynamic_update_slice_in_dim(sums, sums_s, lo, 0))
-
-        # under hull anchoring only `max_iy >= lo` decides skipping
-        # (min_iy == base0 <= lo for non-empty input, and empty input
-        # already fails max_iy >= lo); the `min_iy < hi` conjunct is kept
-        # so the predicate stays correct for ANY slab base, not just the
-        # anchored one
-        count, sums = jax.lax.cond((max_iy >= lo) & (min_iy < hi), run,
-                                   lambda c, s: (c, s), count, sums)
-    return count[: grid.n_lat], sums[: grid.n_lat]
-
-
-def split_bin_indices(grid, flat, valid):
-    """(flat, valid) from bin_indices -> (iy, ix) int32 with the kernel's
-    -1 = invalid-sample sentinel (the bin_rgbelev_from_indices contract —
-    change it HERE, not at the call sites)."""
-    iy = jnp.where(valid, (flat // grid.n_lon).astype(jnp.int32), -1)
-    ix = jnp.where(valid, (flat % grid.n_lon).astype(jnp.int32), -1)
-    return iy, ix
-
-
-@functools.partial(jax.jit, static_argnums=(0, 4, 5))
-def _bin_mean_rgbelev_jit(grid: GridSpec, lats, lons, data, tiles,
-                          interpret):
-    """Mean-bin (R, G, B, elevation) samples with the flagship kernel.
-
-    The drop-in fast path for ``resample(method='mean')``'s standard
-    payload — uint8 RGB imagery + elevation — at ~2x the column-windowed
-    v2 kernel (regrid_pallas.bin_mean_pallas_taint). Semantics: NaN
-    coordinates are invalid samples; NaN DATA at a valid coordinate
-    contributes 0 (the bin_partial contract) rather than tainting the bin
-    — for any Mapping maintaining the mask-consistency invariants the two
-    are indistinguishable, because data NaN occurs exactly where the
-    coordinates are NaN (sanitize_masks fixpoint). Use
-    ``bin_mean_pallas_taint`` for unsanitized data.
-
-    :param data: (h, w, 4) — integer-valued 0..255 RGB + elevation (deg)
-    :returns: (count (n_lat, n_lon), means (n_lat, n_lon, 4))
-    """
-    lats = jnp.asarray(lats, jnp.float32)
-    lons = jnp.asarray(lons, jnp.float32)
-    flat, valid = bin_indices(grid, lats, lons)
-    iy, ix = split_bin_indices(grid, flat, valid)
-    img_chw = jnp.transpose(data[..., :3], (2, 0, 1))
-    count, sums = bin_rgbelev_from_indices(grid, iy, ix, img_chw,
-                                           data[..., 3], tiles, interpret)
-    return count, finalize_mean(count, sums)
-
-
-def bin_mean_rgbelev(grid: GridSpec, lats, lons, data, tiles=TILES,
-                     interpret=False):
-    """See :func:`_bin_mean_rgbelev_jit`; normalizes ``tiles`` to a
-    hashable tuple for the static jit argument (georegrid_partial does
-    the same for its tiles parameter)."""
-    return _bin_mean_rgbelev_jit(grid, lats, lons, data, tuple(tiles),
-                                 bool(interpret))
-
-
-@functools.partial(jax.jit, static_argnums=(0, 4, 5))
+@functools.partial(jax.jit, static_argnums=(0, 4))
 def _georegrid(grid: GridSpec, dyn: DynGeorefParams, img_chw, mask,
-               tiles, interpret):
+               bin_method):
     _, h, w = img_chw.shape
     f32 = jnp.float32
 
     px = jnp.broadcast_to(jnp.arange(w, dtype=f32)[None, :], (h, w))
     py = jnp.broadcast_to(jnp.arange(h, dtype=f32)[:, None], (h, w))
     out = georef_latlon_dyn(dyn, px, py, dtype=f32, with_elevation=True)
-    flat, valid = bin_indices(grid, out["lat"], out["lon"])
+    lat = out["lat"]
     if mask is not None:
-        valid &= ~mask
-    iy, ix = split_bin_indices(grid, flat, valid)
-    return bin_rgbelev_from_indices(grid, iy, ix, img_chw, out["elevation"],
-                                    tiles, interpret)
+        lat = jnp.where(mask, jnp.nan, lat)  # NaN coordinates are invalid
+    data = jnp.concatenate([jnp.transpose(img_chw.astype(f32), (1, 2, 0)),
+                            out["elevation"][..., None]], axis=-1)
+    return bin_partial(grid, lat, out["lon"], data, bin_method)
 
 
 def georegrid_partial(grid: GridSpec, dyn: DynGeorefParams, img_chw,
-                      mask=None, tiles=TILES, interpret=False):
+                      mask=None, bin_method=None):
     """Fused georef + mean-regrid partial: (count, sums) for one frame.
 
     :param grid: fixed plate-carree target grid (static)
     :param dyn: per-frame calibration (DynGeorefParams, f32)
-    :param img_chw: (3, h, w) image, channels first, integer-valued 0..255
-        (the 'uint8' channel contract of the bf16 one-hot matmul)
+    :param img_chw: (3, h, w) image, channels first
     :param mask: optional (h, w) bool, True = exclude pixel
+    :param bin_method: an ``ops.regrid._BIN_METHODS`` key; None takes the
+        device's route (:func:`auromat_tpu.backend.mean_bin_method`)
     :returns: count (n_lat, n_lon) and sums (n_lat, n_lon, 4) over
-        channels (R, G, B, elevation)
-
-    Grids whose padded accumulator fits the VMEM budget (n_lat_pad *
-    n_lon_pad * 8 * 4 bytes; the 540x525 bench grid uses ~11 MB) run as ONE
-    pallas_call; larger grids fall back to a lat-slab loop (each slab
-    re-reads the sample stream). Mission-scale grids are better served by
-    the sharded mosaic (auromat_tpu.parallel), which spreads the grid over
-    devices before slabbing is ever needed.
+        channels (R, G, B, elevation). NaN data at a valid coordinate
+        contributes 0 (the ``bin_partial`` contract).
     """
-    return _georegrid(grid, dyn, img_chw, mask, tuple(tiles), interpret)
+    if bin_method is None:
+        bin_method = mean_bin_method()
+    return _georegrid(grid, dyn, img_chw, mask, bin_method)
 
 
 def georegrid_mean(grid: GridSpec, dyn: DynGeorefParams, img_chw,
-                   mask=None, tiles=TILES, interpret=False):
+                   mask=None, bin_method=None):
     """Fused georef + mean regrid: (count, means); NaN where empty."""
-    count, sums = georegrid_partial(grid, dyn, img_chw, mask, tiles,
-                                    interpret)
+    count, sums = georegrid_partial(grid, dyn, img_chw, mask, bin_method)
     return count, finalize_mean(count, sums)

@@ -5,11 +5,12 @@ Replaces the reference's histogram2d-with-weight-list rebinning
 image channels and elevation are accumulated in ONE pass over the pixels,
 then divided.
 
-TPU mapping: the scatter-add over bins is expressed as a segment-sum over
-sorted bin ids (XLA lowers unsorted scatter-adds on TPU poorly; sorting keys
-is a fast O(n log n) bitonic pass on the VPU and neighbouring pixels land in
-neighbouring bins, so the sort is nearly-ordered data). A direct scatter-add
-variant is kept for comparison/benchmarking.
+Binning routes (``_BIN_METHODS``): a direct scatter-add, which XLA lowers
+to atomics on a GPU and which is the GPU route (auromat_tpu.backend); a
+segment-sum over sorted bin ids; and the scatter-free sorted path with
+prefix sums, which is the exact oracle and the CPU route. The one-hot
+matmul variants (:func:`bin_partial_window`, :func:`bin_partial_tiled`)
+are kept for comparison.
 
 Grid alignment: all resamplings share one global grid per resolution
 (reference resample.py:281-299 ``fixedGrid``) so mosaics line up cell-exact.
@@ -138,9 +139,9 @@ _CHUNK = 4096
 def _log_shift_cumsum(x, axis=-1):
     """Inclusive cumsum via log2(n) shifted adds.
 
-    XLA lowers jnp.cumsum on TPU to a reduce-window (O(n * window) work,
-    measured 37 ms for a 12M-element chunked cumsum); the Hillis-Steele
-    log-shift form is ~20x cheaper and exact for integer-valued f32 data.
+    jnp.cumsum may lower to a reduce-window (O(n * window) work); the
+    Hillis-Steele log-shift form is O(n log n) and exact for
+    integer-valued f32 data.
     """
     n = x.shape[axis]
     shift = 1
@@ -160,8 +161,8 @@ def _chunked_prefix(v):
     """Two-level prefix sums: within-chunk log-shift cumsum + compensated
     (hi, lo) chunk offsets.
 
-    A single associative_scan over 12M elements takes the TPU compiler >400 s
-    to compile; cumsum over (m, 4096) chunks plus a small compensated scan
+    A single associative_scan over 12M elements compiles for minutes;
+    cumsum over (m, 4096) chunks plus a small compensated scan
     over ~3k chunk totals compiles in seconds and keeps per-bin extraction
     accurate: the exclusive chunk offset is an error-free (hi, lo) pair, and
     within-chunk prefixes stay below ~1e6 where f32 is near-exact.
@@ -195,9 +196,8 @@ def _chunked_prefix(v):
 
 
 def _searchsorted_binary(sorted_keys, queries, side="left"):
-    """Vectorized binary search (jnp.searchsorted's default lowering was
-    measured at 333 ms for 230k queries over 12M keys on TPU; 24 rounds of
-    gather/compare cost ~1 ms)."""
+    """Vectorized binary search: a fixed ~log2(n) rounds of
+    gather/compare over every query at once."""
     n = sorted_keys.shape[0]
     n_bits = max(1, int(np.ceil(np.log2(max(n, 2)))) + 1)
     lo = jnp.zeros(queries.shape, dtype=jnp.int32)
@@ -277,8 +277,8 @@ def _bin_sum_sorted(flat_idx, weights, data, n_bins, n_ch):
     """Scatter-free accumulation: sort keys with payloads, per-bin ranges via
     vectorized binary search, sums via two-level prefix sums.
 
-    Avoids XLA's serialized scatter-add on TPU entirely (measured: scatter
-    ~757 ms for 12M samples on v5e vs ~10 ms of dense work here + the sort).
+    Exact and order-independent for integer-valued channels: the oracle
+    every other route is compared with.
     """
     sidx, state = sorted_prefix_state(flat_idx, data)
     return _accumulate_sorted_range(sidx, state, 0, n_bins, data.dtype)
@@ -287,9 +287,7 @@ def _bin_sum_sorted(flat_idx, weights, data, n_bins, n_ch):
 def _bin_sum_sorted_gather(flat_idx, weights, data, n_bins, n_ch):
     """Like _bin_sum_sorted, but sorts only (key, index) pairs and gathers
     the channel payload by the sort permutation afterwards — 2 sorted arrays
-    instead of 1 + n_ch, trading sort passes for one gather. Measured LOSER
-    on v5e (240 ms vs 162 ms end-to-end for the 12 MP frame): the 12M-element
-    random gather costs more than the extra sort payload passes."""
+    instead of 1 + n_ch, trading sort passes for one gather."""
     n = flat_idx.shape[0]
     perm = jnp.arange(n, dtype=jnp.int32)
     sidx, sperm = jax.lax.sort([flat_idx, perm], num_keys=1)
@@ -356,9 +354,8 @@ def _bin_sum_sorted_packed(flat_idx, weights, data, n_bins, n_ch,
 
 
 # ---------------------------------------------------------------------------
-# tiled one-hot-matmul binning (the TPU fast path; same algorithm as the
-# Pallas kernel in regrid_pallas.py but expressed in batched XLA matmuls —
-# usable where Mosaic kernels cannot be compiled)
+# one-hot-matmul binning in batched XLA matmuls (bf16 one-hots are exact for
+# 0/1 and 0..255 integer imagery); kept for comparison with the GPU route
 # ---------------------------------------------------------------------------
 
 _TILE_H = 16
@@ -467,7 +464,7 @@ def bin_partial_window(grid: GridSpec, lats, lons, data, mode="uint8"):
     ones = jnp.ones((n_tiles, 1, p), f32)
     d_all = jnp.concatenate([ones, d_t.transpose(0, 2, 1)], axis=1)  # (B, n_stack, P)
     # bf16-exact channels (count + integer imagery/limbs) ride the fast
-    # bf16 MXU dot; the trailing FRACTIONAL limbs would be truncated by a
+    # bf16 dot; the trailing FRACTIONAL limbs would be truncated by a
     # bf16 cast (measured: up to 0.01 on per-bin elevation sums), so they
     # take a separate f32 HIGHEST dot — this is the XLA fallback path,
     # exactness beats speed here
@@ -529,7 +526,7 @@ def bin_partial_tiled(grid: GridSpec, lats, lons, data, mode="uint8"):
 
     Image-space tiles land in a narrow, 8-aligned band of grid rows;
     per tile, channel-stacked row one-hots (M = channels x 16 rows) multiply
-    the column one-hot on the MXU, tiles reduce into 8-aligned row groups by
+    the column one-hot in one matmul, tiles reduce into 8-aligned row groups by
     a second matmul, and the ~60 groups overlap-add into the grid — no
     scatter, no sort on the hot path. bf16 one-hots are exact for 0/1 and
     0..255 integer imagery ('uint8' mode splits the trailing elevation
@@ -542,8 +539,7 @@ def bin_partial_tiled(grid: GridSpec, lats, lons, data, mode="uint8"):
     Out-of-window pixels (near the horizon the pixel footprint outgrows the
     row band) spill to the exact sorted path. NOTE: the spill sort is NOT
     cheap — "adaptive sort" does not apply to payload sorts (an
-    all-sentinel 12M-key sort with 2 payloads measured 147 ms on v5e; see
-    CLAUDE.md), which is why this variant lost to the window kernels.
+    all-sentinel 12M-key sort still pays full payload passes).
     """
     h, w = lats.shape
     n_ch_in = data.shape[-1]
@@ -651,7 +647,7 @@ def bin_partial_tiled(grid: GridSpec, lats, lons, data, mode="uint8"):
         g_onehot, s.reshape(n_tiles, -1),
         dimension_numbers=(((1,), (0,)), ((), ())),
         preferred_element_type=f32,
-        # f32 x f32 on the MXU truncates to bf16 at DEFAULT precision,
+        # an f32 x f32 dot may run in reduced precision at DEFAULT,
         # which would round the accumulated sums; the one-hot side is
         # exact so HIGHEST restores exactness
         precision=jax.lax.Precision.HIGHEST,
@@ -773,19 +769,11 @@ def bin_partial(grid: GridSpec, lats, lons, data, method="segment"):
     reduce-scatter combines (count, sums) across the mesh, and the divide
     happens once after the reduction (SURVEY.md P6).
 
-    method='pallas' dispatches to the Mosaic window kernel
-    (ops.regrid_pallas, TPU only, requires (h, w) inputs and finite data;
-    'uint8' channel contract) — the fast path for imagery+elevation.
-
     NaN DATA at valid coordinates is treated as 0 here (partial sums must
     stay finite for the cross-shard reduction; a raw NaN riding the
     sorted path's prefix sums would corrupt every later bin). Use
     :func:`bin_mean` for the reference's NaN-taint semantics.
     """
-    if method == "pallas":
-        from auromat_tpu.ops.regrid_pallas import bin_partial_pallas2
-
-        return bin_partial_pallas2(grid, lats, lons, data, "uint8")
     n_ch = data.shape[-1]
     flat_lats = jnp.ravel(lats)
     flat_lons = jnp.ravel(lons)
@@ -815,8 +803,7 @@ def bin_nearest(grid: GridSpec, lats, lons, data, oversample=2):
 
     The reference recommends 'nearest' over 'mean' for grids finer than the
     native pixel scale (reference resample.py:323-329) but reaches it
-    through host scipy (a KD-tree — unusable on TPU). Here it is two
-    TPU-native phases:
+    through host scipy (a KD-tree). Here it is two device phases:
 
     1. **seed**: a two-key ``lax.sort`` by (bin, distance-to-cell-centre)
        makes each occupied cell's nearest LOCAL sample the first entry of
@@ -1188,7 +1175,7 @@ def interp_linear_structured(grid: GridSpec, lat_src, lon_src, data,
     host-only Delaunay pass. A mapping's pixel centres are not arbitrary
     scatter though: they form a smooth (h, w) mesh in lat/lon space, so
     linear interpolation is the INVERSE of that mesh map. This solves it
-    the TPU way, with dense elementwise work and small gathers only:
+    on the device, with dense elementwise work and small gathers only:
 
     1. seed each target cell with its nearest source pixel index via the
        jump-flood machinery (:func:`bin_nearest` carrying (row, col)

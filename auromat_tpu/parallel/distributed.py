@@ -1,16 +1,15 @@
 """Multi-host initialization: jax.distributed plumbing + global meshes.
 
-Single-host TPU slices need nothing — ``jax.devices()`` sees every chip on
-the host and the Mesh collectives ride ICI. Multi-host slices (or CPU/GPU
-clusters over DCN) must call :func:`initialize` once per process before any
-other jax use; afterwards ``jax.devices()`` is the GLOBAL device list and
-:func:`global_mesh` builds the (dp, sp) mesh over it, with hosts laid out
-along dp so the regrid reduce-scatter's heavy traffic stays on intra-host
-ICI and only the final band exchange crosses DCN.
+A single host needs nothing — ``jax.devices()`` sees every GPU on the host
+and the Mesh collectives ride the host's interconnect (NVLink). Several
+processes (several hosts, or CPU clusters) must call :func:`initialize`
+once per process before any other jax use; afterwards ``jax.devices()`` is
+the GLOBAL device list and :func:`global_mesh` builds the (dp, sp) mesh over
+it, with hosts laid out along dp.
 
 The reference has no distributed backend at all (SURVEY.md P6: its only
 inter-process channel is a multiprocessing pipe); this module is the
-TPU-native replacement for scaling BASELINE config 5 beyond one host.
+device-side replacement for scaling BASELINE config 5 beyond one host.
 """
 
 import os
@@ -22,11 +21,11 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
                local_device_ids=None):
     """Initialize jax.distributed for a multi-host run (idempotent).
 
-    Arguments default from the standard environment (JAX_COORDINATOR_ADDRESS
-    / JAX_NUM_PROCESSES / JAX_PROCESS_ID, or the cloud-TPU metadata that
-    jax.distributed.initialize auto-detects on TPU pods). Call before any
-    other jax API. Safe to call when running single-process (no-op if no
-    coordinator is configured and not on a TPU pod).
+    Arguments default from the environment (JAX_COORDINATOR_ADDRESS /
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID); nothing is auto-detected, so a
+    cluster is always named explicitly. Call before any other jax API.
+    Returns False, and does nothing, when no coordinator is configured
+    (single-process mode).
     """
     try:
         if jax.distributed.is_initialized():
@@ -45,18 +44,8 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None,
             "incomplete cluster config: set BOTH JAX_COORDINATOR_ADDRESS "
             "and JAX_NUM_PROCESSES (got only one)")
 
-    if coordinator_address is None and num_processes is None:
-        # single process, or TPU-pod autodetection
-        cluster_markers = ("COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-                          "TPU_WORKER_HOSTNAMES", "CLOUD_TPU_TASK_ID")
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            if any(os.environ.get(k) for k in cluster_markers):
-                raise  # a cluster IS configured: fail fast, do not degrade
-            return False  # no cluster configured: single-process mode
-        initialize._done = True
-        return True
+    if coordinator_address is None:
+        return False  # no cluster configured: single-process mode
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,

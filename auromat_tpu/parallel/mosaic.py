@@ -7,7 +7,7 @@ partials — which are LINEAR — accumulate across bursts with the row-band
 sharding intact, and the mean finalizes once at the end. This replaces the
 reference's NuMap host-process throughput loop
 (auromat/mapping/spacecraft.py:308-377 feeding cli/convert.py:176-218) with
-a device pipeline: georef + binning + ICI reduce-scatter all inside one jit
+a device pipeline: georef + binning + reduce-scatter all inside one jit
 per burst.
 
 Remainder bursts (sequence length not a multiple of the burst size) are
@@ -22,6 +22,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from auromat_tpu.backend import mean_bin_method
 from auromat_tpu.ops.georef import DynGeorefParams, GeorefParams
 from auromat_tpu.ops.regrid import GridSpec, finalize_mean
 from auromat_tpu.parallel.sharding import (Mesh,
@@ -57,17 +58,18 @@ def null_georef_params(like: GeorefParams) -> GeorefParams:
 
 
 def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
-                    bin_method="pallas", dtype=jnp.float32,
-                    chunk_rows=None, interpret=False,
-                    slab_budget_bytes=None, min_elevation=None):
+                    bin_method=None, dtype=jnp.float32,
+                    chunk_rows=None, min_elevation=None):
     """Mosaic a whole frame sequence through the grid-sharded step.
 
     :param bursts: iterable of (params_list, imgs) — same-shaped frame
         groups, e.g. ``SpacecraftMappingProvider.iterParamBursts(...)``.
         ``params_list`` is a list of :class:`GeorefParams`; ``imgs`` is
-        (B, h, w, 3) float (0..255 uint8-valued — the kernel contract).
+        (B, h, w, 3) float (0..255 uint8-valued).
         Groups may have ANY length; they are re-chunked/padded to ``batch``.
     :param batch: frames per compiled step call; must divide by mesh dp.
+    :param bin_method: ``ops.regrid._BIN_METHODS`` key; None takes the
+        device's route (:func:`auromat_tpu.backend.mean_bin_method`)
     :param min_elevation: mask samples below this elevation (degrees)
         BEFORE binning — the per-pixel ``maskedByElevation`` semantics of
         the per-frame convert path, inside the device step.
@@ -83,6 +85,8 @@ def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
     if batch % dp_n != 0:
         raise ValueError(f"batch {batch} must divide by mesh dp={dp_n}")
 
+    if bin_method is None:
+        bin_method = mean_bin_method()
     total = None  # (count, sums), sharded
 
     def step_for(h, w):
@@ -90,15 +94,14 @@ def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
         # make_grid_sharded_mosaic_step would wrap a fresh jit object and
         # re-trace the whole georef+binning graph every sequence (seconds
         # of host time even with the persistent compile cache warm)
-        key = (mesh, grid, h, w, dtype, bin_method, chunk_rows, interpret,
-               slab_budget_bytes, min_elevation)
+        key = (mesh, grid, h, w, dtype, bin_method, chunk_rows,
+               min_elevation)
         if key not in _STEP_CACHE:
             while len(_STEP_CACHE) >= _STEP_CACHE_MAX:
                 _STEP_CACHE.pop(next(iter(_STEP_CACHE)))  # oldest-first
             _STEP_CACHE[key] = make_grid_sharded_mosaic_step(
                 mesh, grid, h, w, channels=3, dtype=dtype,
                 bin_method=bin_method, chunk_rows=chunk_rows,
-                interpret=interpret, slab_budget_bytes=slab_budget_bytes,
                 finalize=False, min_elevation=min_elevation)
         else:  # LRU refresh
             _STEP_CACHE[key] = _STEP_CACHE.pop(key)
@@ -124,10 +127,9 @@ def mosaic_sequence(mesh: Mesh, grid: GridSpec, bursts, batch=8,
                     [imgs, np.zeros((batch - n,) + imgs.shape[1:],
                                     imgs.dtype)])
         dyn = DynGeorefParams.stack(params, dtype=dtype)
-        # device-resident imagery passes through WITHOUT a host fetch (a
-        # np.asarray would pull it back through the relay), but must still
-        # be f32 — a second input dtype on the cached step would silently
-        # re-trace + recompile the whole graph (minutes on the remote TPU)
+        # device-resident imagery passes through WITHOUT a host fetch, but
+        # must still be f32 — a second input dtype on the cached step would
+        # silently re-trace + recompile the whole graph
         if on_device and imgs.dtype != jnp.float32:
             imgs = imgs.astype(jnp.float32)
         cnt, sums = step_for(h, w)(dyn,

@@ -3,12 +3,11 @@
 The full pipeline step = batched georef (vmap over frames) + multi-channel
 mean regrid with a cross-shard psum of (count, sums) partial bins. Frames
 shard over the ``dp`` mesh axis, image rows over ``sp``; the reduction rides
-ICI collectives inserted for the psum. This is the TPU-native replacement for
+the collectives inserted for the psum. This is the device replacement for
 the reference's host-process parallelism (auromat/mapping/spacecraft.py:
 308-377) and the scale path for mission-scale mosaics (BASELINE configs 4-5).
 """
 
-import dataclasses
 from functools import partial
 
 import jax
@@ -16,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
+from auromat_tpu.backend import mean_bin_method
 from auromat_tpu.ops.georef import DynGeorefParams, georef_latlon_dyn
 from auromat_tpu.ops.regrid import (_BIN_METHODS, GridSpec, bin_indices,
                                     bin_partial, finalize_mean, round_up)
@@ -63,7 +63,7 @@ def _dyn_dp_spec():
 
 def make_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
                              channels=3, dtype=jnp.float32,
-                             with_elevation=True, bin_method="sorted"):
+                             with_elevation=True, bin_method=None):
     """Build the jitted full pipeline step over a mesh.
 
     step(dyn_params, imgs) -> (count, means)
@@ -72,8 +72,11 @@ def make_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
       count: (n_lat, n_lon) replicated; means: (n_lat, n_lon, channels[+1])
       (last channel = mean elevation when with_elevation)
 
-    B must divide by mesh 'dp', height by 'sp'.
+    B must divide by mesh 'dp', height by 'sp'. ``bin_method`` None takes
+    the device's route (:func:`auromat_tpu.backend.mean_bin_method`).
     """
+    if bin_method is None:
+        bin_method = mean_bin_method()
     dp_n = mesh.shape["dp"]
     sp_n = mesh.shape["sp"]
     assert height % sp_n == 0, (height, sp_n)
@@ -125,36 +128,30 @@ def make_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
 
 def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
                                   channels=3, dtype=jnp.float32,
-                                  with_elevation=True, bin_method="sorted",
-                                  chunk_rows=None, interpret=False,
-                                  slab_budget_bytes=None, finalize=True,
+                                  with_elevation=True, bin_method=None,
+                                  chunk_rows=None, finalize=True,
                                   min_elevation=None):
     """Mission-scale mosaic step: the GRID is sharded, not just the samples.
 
     ``make_sharded_mosaic_step`` psums dense full-grid partials onto every
     device — fine for regional grids, but a 0.05 deg global mosaic
-    (3600 x 7200 x C f32, ~600 MB; BASELINE config 5) must never be
-    materialized per device. Here every device OWNS one latitude band of
-    the grid (band = ceil(n_lat / n_devices) rows, assigned by linear mesh
-    index); partial bins are routed with ``lax.psum_scatter``
-    (reduce-scatter over the ICI ring — each grid element crosses the
-    interconnect exactly once, vs n_dev times for the psum variant), in
-    row-chunks so the per-device working set stays at
-    n_dev * chunk_rows * n_lon * (C+1) floats (default: ~1/n_dev of the
-    full grid) instead of the full grid.
+    (3600 x 7200 x C f32, ~600 MB; BASELINE config 5) should not be
+    all-reduced onto every device. Here every device OWNS one latitude
+    band of the grid (band = ceil(n_lat / n_devices) rows, assigned by
+    linear mesh index); partial bins are routed with ``lax.psum_scatter``
+    (reduce-scatter — each grid element crosses the interconnect exactly
+    once, vs n_dev times for the psum variant), in row-chunks of
+    n_dev * chunk_rows rows (default: ~1/n_dev of the full grid).
 
-    ``bin_method='pallas'`` bins each shard's samples with the flagship
-    fused-path kernel (ops.georegrid.bin_rgbelev_from_indices — the same
-    column-windowed Mosaic kernel as the 8.5 ms single-chip step) instead
-    of the ~17x slower sorted XLA path; the psum_scatter chunk routing is
-    unchanged (partials are binned into the natural grid once, then sliced
-    chunk-by-chunk, so each grid element still crosses the interconnect
-    exactly once). Trade-off vs 'sorted': the per-device *binning
-    accumulator* is the full padded grid (band * n_dev rows — ~620 MB for
-    the 0.05 deg global mosaic at f32, fine in 16 GB HBM) rather than
-    ~1/n_dev of it; pick 'sorted' when grid memory, not speed, binds.
-    Requires channels=3 + with_elevation (the kernel's uint8 RGB+elev
-    channel contract); ``interpret=True`` for CPU-mesh tests.
+    ``bin_method`` is an ``ops.regrid._BIN_METHODS`` key; None takes the
+    device's route (:func:`auromat_tpu.backend.mean_bin_method`). The
+    'sorted' route sorts the shard's samples ONCE in chunk-major key
+    order and answers each chunk with a range query, so its working set
+    stays at ~1/n_dev of the grid. Every other route bins the shard's
+    samples ONCE into the band-padded full grid and slices that
+    accumulator chunk by chunk for the routing: one pass over the samples,
+    at the cost of a full-grid accumulator per device (~520 MB for the
+    0.05 deg global mosaic at f32).
 
     step(dyn_params, imgs) -> (count, means) as GLOBAL jax.Arrays of shape
     (band * n_dev, n_lon[, C]) sharded row-wise over the mesh (each device
@@ -188,25 +185,22 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
         chunk_rows = max(8, round_up(band // n_dev, 8))
     chunk_rows = min(chunk_rows, band)
     n_chunks = -(-band // chunk_rows)
+    band_pad = n_chunks * chunk_rows
     n_ch = channels + (1 if with_elevation else 0)
     if min_elevation is not None and not with_elevation:
         raise ValueError("min_elevation needs with_elevation=True "
                          "(the mask tests the per-sample elevation)")
-    if bin_method == "pallas":
-        if channels != 3 or not with_elevation:
-            raise ValueError(
-                "bin_method='pallas' requires channels=3 + with_elevation"
-                " (the fused kernel's uint8 RGB+elevation channel contract)"
-            )
-        bin_fn = None
-    else:
-        bin_fn = _BIN_METHODS[bin_method]
-    band_pad = n_chunks * chunk_rows
+    if bin_method is None:
+        bin_method = mean_bin_method()
+    if bin_method not in _BIN_METHODS:
+        raise ValueError(f"unknown bin_method {bin_method!r}; expected one "
+                         f"of {sorted(_BIN_METHODS)}")
+    bin_fn = _BIN_METHODS[bin_method]
 
     if n_dev == 1:
         # reduce-scatter over a singleton axis pair is the identity, but
         # XLA still emits a real reduce-scatter (a full copy of the
-        # routed grid — ~0.5 GB per config-5 step); elide at trace time
+        # routed grid); elide it at trace time
         def _scatter(x):
             return x
     else:
@@ -220,12 +214,6 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
         def per_frame(d, img):
             out = georef_latlon_dyn(d, px, py, dtype=dtype,
                                     with_elevation=with_elevation)
-            # img and elevation ride SEPARATELY: the pallas branch consumes
-            # them as distinct kernel operands, and concatenating into one
-            # (h, w, C+1) tensor only to slice the channels apart again
-            # costs a full extra HBM pass at config-5 scale (the sorted
-            # branch concatenates below, where the payload really is one
-            # (samples, n_ch) array)
             elev = out["elevation"] if with_elevation else None
             return out["lat"], out["lon"], img, elev
 
@@ -242,70 +230,6 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
         n_rows_stacked = n_dev * chunk_rows
         chunk_bins = n_rows_stacked * n_lon
 
-        if bin_method == "pallas":
-            # bin ONCE into the natural grid with the flagship kernel, then
-            # slice the accumulated GRID chunk-by-chunk for the
-            # psum_scatter routing (grid-sized slicing is cheap; the
-            # per-chunk alternative would re-stream the samples n_chunks
-            # times through the kernel)
-            from auromat_tpu.ops.georegrid import (bin_rgbelev_from_indices,
-                                                   split_bin_indices)
-
-            iy2, ix2 = split_bin_indices(grid, flat_idx, valid)
-            iy2 = iy2.reshape(-1, width)
-            ix2 = ix2.reshape(-1, width)
-            img2 = jnp.transpose(
-                img_b.reshape(-1, width, 3), (2, 0, 1))
-            elev2 = elev_b.reshape(-1, width)
-            # bin straight into the band-padded accumulator (indices come
-            # from the REAL grid above, so rows >= n_lat never receive a
-            # sample; the extra rows land in a runtime-skipped slab): a
-            # natural-grid accumulator would need a row jnp.pad below —
-            # a full copy of the ~0.5 GB tensor pair per step at config-5
-            # scale
-            grid_pad = dataclasses.replace(grid, n_lat=band * n_dev)
-            cnt_nat, sums_nat = bin_rgbelev_from_indices(
-                grid_pad, iy2, ix2, img2, elev2, interpret=interpret,
-                slab_budget_bytes=slab_budget_bytes)
-
-            # route count and sums SEPARATELY: the r4 code concatenated
-            # them into one (n_lat, n_lon, 1+C) tensor only to slice the
-            # channels apart again for the two scatters — at config-5
-            # scale that concat alone moves ~1 GB of HBM traffic per step
-            def route(x):
-                # (band*n_dev, n_lon[, C]) -> (n_dev, band_pad, n_lon[, C])
-                # — the accumulator is already band-padded (grid_pad
-                # above), so the reshape is layout-preserving (row-major)
-                # and only the band->band_pad pad copies, and only when
-                # n_chunks does not divide the band exactly.
-                tail = ((0, 0),) * (x.ndim - 1)
-                x = x.astype(dtype)
-                x = x.reshape((n_dev, band) + x.shape[1:])
-                if band_pad != band:
-                    x = jnp.pad(x, ((0, 0), (0, band_pad - band)) + tail)
-                return x
-
-            cnt_full = route(cnt_nat)
-            sums_full = route(sums_nat)
-            cnts, smss = [], []
-            for c in range(n_chunks):
-                sl = slice(c * chunk_rows, (c + 1) * chunk_rows)
-                cnts.append(_scatter(
-                    cnt_full[:, sl].reshape(n_rows_stacked, n_lon)))
-                smss.append(_scatter(
-                    sums_full[:, sl].reshape(n_rows_stacked, n_lon, n_ch)))
-            # chunk outputs concatenate to the device band directly (the
-            # r4 zeros-init + per-chunk .at[].set paid one extra full-band
-            # pass; for the single-chunk case this is a no-op)
-            out_count = (cnts[0] if n_chunks == 1
-                         else jnp.concatenate(cnts))[:band]
-            out_sums = (smss[0] if n_chunks == 1
-                        else jnp.concatenate(smss))[:band]
-            return out_count, (finalize_mean(out_count, out_sums)
-                               if finalize else out_sums)
-
-        band_id = iy // band
-        rib = iy - band_id * band  # row inside the destination band
         data = img_b
         if with_elevation:
             data = jnp.concatenate([img_b, elev_b[..., None]], axis=-1)
@@ -316,7 +240,6 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
         # bin after it in sort order (same scrub as bin_partial)
         data2d = jnp.where(jnp.isnan(data2d), 0.0, data2d)
 
-        state = None
         if bin_method == "sorted":
             # sort ONCE in chunk-major key order; each chunk then costs one
             # binary-search range query over the shared prefix sums (the
@@ -324,6 +247,8 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
             from auromat_tpu.ops.regrid import (_accumulate_sorted_range,
                                                 sorted_prefix_state)
 
+            band_id = iy // band
+            rib = iy - band_id * band  # row inside the destination band
             chunk_id = rib // chunk_rows
             key = (chunk_id * n_rows_stacked
                    + band_id * chunk_rows
@@ -335,24 +260,37 @@ def make_grid_sharded_mosaic_step(mesh: Mesh, grid: GridSpec, height, width,
             # payload array would add a full extra sort pass
             sidx, state = sorted_prefix_state(key, data2d)
 
+            def chunk_acc(c):
+                return _accumulate_sorted_range(sidx, state, c * chunk_bins,
+                                                chunk_bins, dtype)
+        else:
+            # bin ONCE into the band-padded natural grid (rows >= n_lat
+            # never receive a sample), then slice the accumulated GRID
+            # chunk by chunk: (n_dev * band, n_lon) rows reshape to
+            # (n_dev, band, ...) without a copy, and only a band that
+            # n_chunks does not divide exactly pays a pad
+            n_pad_bins = n_dev * band * n_lon
+            flat = jnp.where(valid, flat_idx, n_pad_bins)
+            dense = bin_fn(flat, valid.astype(dtype), data2d, n_pad_bins,
+                           n_ch).astype(dtype)
+            dense = dense.reshape(n_dev, band, n_lon, 1 + n_ch)
+            if band_pad != band:
+                dense = jnp.pad(dense, ((0, 0), (0, band_pad - band),
+                                        (0, 0), (0, 0)))
+
+            def chunk_acc(c):
+                sl = slice(c * chunk_rows, (c + 1) * chunk_rows)
+                return dense[:, sl]
+
         cnts, smss = [], []
         for c in range(n_chunks):
-            if state is not None:
-                acc = _accumulate_sorted_range(sidx, state, c * chunk_bins,
-                                               chunk_bins, dtype)
-            else:
-                sel = valid & (rib // chunk_rows == c)
-                local_row = band_id * chunk_rows + (rib - c * chunk_rows)
-                flat_local = jnp.where(sel, local_row * n_lon + ix,
-                                       chunk_bins)
-                acc = bin_fn(flat_local, valid.astype(dtype), data2d,
-                             chunk_bins, n_ch)
-            cnt = acc[:, 0].reshape(n_rows_stacked, n_lon)
-            sms = acc[:, 1:].reshape(n_rows_stacked, n_lon, n_ch)
             # reduce-scatter: device d receives rows [d*chunk_rows, ...)
-            # (linear mesh order matches the band assignment/out_specs)
-            cnts.append(_scatter(cnt))
-            smss.append(_scatter(sms))
+            # of the chunk (linear mesh order matches the band assignment
+            # and out_specs)
+            acc = _scatter(chunk_acc(c).reshape(n_rows_stacked, n_lon,
+                                                1 + n_ch))
+            cnts.append(acc[..., 0])
+            smss.append(acc[..., 1:])
         out_count = (cnts[0] if n_chunks == 1
                      else jnp.concatenate(cnts))[:band]
         out_sums = (smss[0] if n_chunks == 1

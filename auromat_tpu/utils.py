@@ -12,14 +12,13 @@ def host_f64_device():
     default backend.
 
     Host-side per-frame math (mapping lazies, ASI calibration reprojection,
-    pole rotation) needs float64: TPU backends silently degrade f64 to f32
-    (CLAUDE.md), and on a remote TPU every eager op is a network roundtrip
-    — these paths are latency-, not FLOP-bound, so the host CPU is also
-    the FAST placement. No-op when CPU already is the default, or when no
-    CPU backend exists (``jax_platforms`` pinned to an accelerator alone —
-    the convert CLI therefore selects "tpu,cpu", not bare "tpu").
-    Device-resident pipelines (ops.georef/georegrid, parallel.*) manage
-    their own placement and never route through this."""
+    pole rotation) is small, eager and latency-bound, so the host CPU is
+    the fast placement, and its float64 results stay bit-identical to the
+    CPU-gated goldens whatever the accelerator. No-op when CPU already is
+    the default, or when no CPU backend exists (``jax_platforms`` pinned to
+    an accelerator alone — the convert CLI therefore selects "cuda,cpu",
+    not bare "cuda"). Device-resident pipelines (ops.georef/georegrid,
+    parallel.*) manage their own placement and never route through this."""
     import contextlib
 
     import jax
@@ -144,8 +143,7 @@ def wrap_lon_180(lon):
     """Wrap degrees into [-180, 180), host-side numpy f64.
 
     The jax-based transform.wrap_longitude would run per-frame grid wraps
-    on the DEFAULT backend — under an accelerator default that silently
-    degrades f64->f32 (and costs eager remote roundtrips on a networked
-    TPU). Host grid math stays numpy (CLAUDE.md convention).
+    on the DEFAULT backend — an eager device roundtrip per call under an
+    accelerator default. Host grid math stays numpy (CLAUDE.md convention).
     """
     return (np.asarray(lon, dtype=np.float64) + 180.0) % 360.0 - 180.0

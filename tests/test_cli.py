@@ -293,7 +293,7 @@ class TestBatchedPipeline:
         seen = {}
 
         def fake_mosaic_sequence(mesh, grid, bursts, batch=8,
-                                 bin_method="pallas", min_elevation=None,
+                                 bin_method=None, min_elevation=None,
                                  **kw):
             seen["min_elevation"] = min_elevation
             count = np.zeros((grid.n_lat, grid.n_lon))

@@ -1,8 +1,8 @@
 """Double-float arithmetic accuracy tests (vs the float64 oracle).
 
-These run on CPU where f32 ops are IEEE binary32, identical to TPU VPU
-semantics for +,-,*,/,sqrt — the error-free transformations therefore carry
-over to the device.
+These run on CPU where f32 ops are IEEE binary32, the same round-to-nearest
+semantics a GPU uses for +,-,*,/,sqrt — the error-free transformations
+therefore carry over to the device (chip_smoke.py checks the chain there).
 """
 
 import numpy as np

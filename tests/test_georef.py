@@ -106,7 +106,7 @@ def test_altitude_monotonic():
 
 def test_float32_chain_accuracy():
     """f32 end-to-end: documents the precision floor that motivates the
-    compensated TPU path (~1e-3..1e-2 deg vs f64)."""
+    compensated df64 path (~1e-3..1e-2 deg vs f64)."""
     import jax.numpy as jnp
 
     golden = np.load(os.path.join(RES, "golden_georef_ISS030-E-102170_dc.npz"))
@@ -124,8 +124,8 @@ def test_float32_chain_accuracy():
 @pytest.mark.slow
 def test_create_mapping_df64_full_precision():
     """dtype='df64' builds a full-precision PRODUCTION mapping through the
-    double-float chain — the TPU-resident export path (on TPUs plain f64
-    silently computes in f32; VERDICT r2 item 3). Gate: every mapping
+    double-float chain — the device-resident full-precision export path
+    from f32 arithmetic. Gate: every mapping
     variable within 1e-6 (measured ~1e-10) of the f64 chain with matching
     masks."""
     import jax.numpy as jnp
@@ -251,10 +251,10 @@ class TestGenericProjectionGeoref:
     def test_generic_projection_f32_floor(self, code):
         """The f32 generic chain stays within its documented floor vs the
         f64 oracle (max ~1.6e-3 deg full-frame at step 8; gate 0.01 with
-        headroom) with IDENTICAL masks. This is the bound tools/
-        onchip_parity.py --generic and bench.py's generic_parity_deg gate
-        on the real TPU — a TPU-only hazard (bf16 default matmul on the
-        direction path) would land orders of magnitude above it."""
+        headroom) with IDENTICAL masks. This is the bound chip_smoke.py's
+        generic phase and bench.py's generic_parity_deg gate on the GPU —
+        a device-only hazard (a TF32 default matmul on the direction path)
+        would land orders of magnitude above it."""
         import jax
         import jax.numpy as jnp
 

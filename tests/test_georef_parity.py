@@ -78,7 +78,7 @@ def test_golden_sanity():
 
 @pytest.mark.parametrize("name", ["ISS030-E-102170_dc"])
 def test_df64_chain_parity(name):
-    """The double-float chain (f32 pairs, TPU-executable) must match the
+    """The double-float chain (f32 pairs, device-executable) must match the
     float64 goldens to <1e-6 deg — the on-hardware parity story
     (SURVEY.md section 7: f64 emulation via double-word arithmetic)."""
     from auromat_tpu.ops.georef import GeorefParams, georeference_points_df64

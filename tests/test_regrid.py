@@ -285,6 +285,86 @@ def test_window_tiled_elevation_f32_accurate():
         assert dev < 1e-3, (fn.__name__, dev)
 
 
+# ---------------------------------------------------------------------------
+# the one-hot matmul variants (bin_partial_window / bin_partial_tiled) vs
+# the sorted oracle
+# ---------------------------------------------------------------------------
+
+def synthetic_frame(n=64, m=128, lat0=60.0, lon0=-100.0, spread=0.01,
+                    seed=7, holes=True, spill_rows=0):
+    rng = np.random.default_rng(seed)
+    lats = lat0 + np.cumsum(rng.random((n, m)) * spread, axis=0)
+    lons = lon0 + np.cumsum(rng.random((n, m)) * spread, axis=1)
+    if spill_rows:
+        # emulate the horizon: a few rows whose cells spread far beyond any
+        # 32x32 window
+        lats[:spill_rows] += np.linspace(0, 20, m)[None, :]
+        lons[:spill_rows] += np.linspace(0, 30, m)[None, :]
+    if holes:
+        yy, xx = np.mgrid[:n, :m]
+        hole = (yy - n / 2) ** 2 + (xx - m / 2) ** 2 < (n / 6) ** 2
+        lats[hole] = np.nan
+        lons[hole] = np.nan
+    # production contract: image channels are integer-valued (uint8/uint16
+    # cast to float); the last channel (elevation) is arbitrary float
+    data = np.round(rng.random((n, m, 4)) * 255).astype(np.float32)
+    data[..., -1] = rng.random((n, m)) * 90
+    return lats.astype(np.float32), lons.astype(np.float32), data
+
+
+def nudge_off_edges(lats, lons, g, eps=1e-4):
+    """Push samples off bin edges: the one-hot variants compute offsets in
+    f32 — a sample within an f32 ulp of an edge may legitimately flip."""
+    fy = (g.lat0 + g.lat_step / 2 - lats) / g.lat_step
+    fx = (lons - (g.lon0 - g.lon_step / 2)) / g.lon_step
+    lats = np.where(np.abs(fy - np.round(fy)) < eps, lats - g.lat_step * 4 * eps, lats)
+    lons = np.where(np.abs(fx - np.round(fx)) < eps, lons + g.lon_step * 4 * eps, lons)
+    return lats.astype(np.float32), lons.astype(np.float32)
+
+
+def test_tiled_xla_matches_oracle():
+    from auromat_tpu.ops.regrid import bin_partial_tiled, bin_partial
+
+    lats, lons, data = synthetic_frame(spill_rows=4)
+    g = fixed_grid(25, np.nanmin(lats), np.nanmax(lats) + 0.1,
+                   np.nanmin(lons), np.nanmax(lons) + 0.1)
+    lats, lons = nudge_off_edges(lats, lons, g)
+    cr, sr = bin_partial(g, lats, lons, data)
+    c, s = bin_partial_tiled(g, lats, lons, data, "uint8")
+    assert_allclose(np.asarray(c), np.asarray(cr))
+    assert_allclose(np.asarray(s), np.asarray(sr), rtol=1e-4, atol=0.05)
+
+
+def test_tiled_xla_full_mode():
+    from auromat_tpu.ops.regrid import bin_partial_tiled, bin_partial
+
+    lats, lons, data = synthetic_frame()
+    rng = np.random.default_rng(5)
+    data = rng.random(data.shape).astype(np.float32) * 65535
+    g = fixed_grid(25, np.nanmin(lats), np.nanmax(lats) + 0.1,
+                   np.nanmin(lons), np.nanmax(lons) + 0.1)
+    lats, lons = nudge_off_edges(lats, lons, g)
+    cr, sr = bin_partial(g, lats, lons, data)
+    c, s = bin_partial_tiled(g, lats, lons, data, "full")
+    assert_allclose(np.asarray(c), np.asarray(cr))
+    m = np.asarray(cr) > 0
+    rel = np.abs(np.asarray(s)[m] - np.asarray(sr)[m]) / np.maximum(np.asarray(sr)[m], 1)
+    assert rel.max() < 1e-4
+
+
+def test_window_xla_matches_oracle():
+    from auromat_tpu.ops.regrid import bin_partial_window, bin_partial
+
+    lats, lons, data = synthetic_frame(n=128, m=192, spill_rows=6)
+    g = fixed_grid(25, np.nanmin(lats), np.nanmax(lats) + 0.1,
+                   np.nanmin(lons), np.nanmax(lons) + 0.1)
+    lats, lons = nudge_off_edges(lats, lons, g)
+    cr, sr = bin_partial(g, lats, lons, data)
+    c, s = bin_partial_window(g, lats, lons, data, "uint8")
+    assert_allclose(np.asarray(c), np.asarray(cr))
+    assert_allclose(np.asarray(s), np.asarray(sr), rtol=1e-4, atol=0.05)
+
+
 @pytest.mark.slow
 class TestBinNearest:
     """Device nearest-sample resampling (seeding + jump-flood Voronoi) vs
@@ -431,7 +511,7 @@ class TestBinTakeBest:
 @pytest.mark.slow
 class TestInterpLinearStructured:
     """Device linear interpolation by Newton mesh inversion + bilinear
-    sampling (the TPU replacement for scipy.griddata 'linear')."""
+    sampling (the device replacement for scipy.griddata 'linear')."""
 
     @staticmethod
     def _affine_mesh(h=40, w=60):

@@ -89,7 +89,7 @@ class TestResample:
 
     @pytest.mark.slow
     def test_nearest_device_matches_scipy(self):
-        """The TPU jump-flood nearest path (ops.regrid.bin_nearest) against
+        """The device jump-flood nearest path (ops.regrid.bin_nearest) against
         the host scipy KD-tree path: identical masks, near-identical cells
         (JFA/seeding picks a different-but-nearby sample only for a tiny
         fraction of cells — see bin_nearest docstring)."""
@@ -109,11 +109,11 @@ class TestResample:
         same = np.all(a[inside] == b[inside], axis=-1)
         assert same.mean() > 0.95, same.mean()
 
-    def test_nearest_routes_to_device_on_tpu(self, monkeypatch):
+    def test_nearest_routes_to_device_on_gpu(self, monkeypatch):
         """resample(method='nearest') must use the device jump-flood path
-        when the default backend is TPU (VERDICT r3 item 8: the production
-        method should not silently fall back to a host KD-tree), and
-        'nearest_host' must force scipy regardless of backend."""
+        when the default backend is a GPU (the production method should
+        not silently fall back to a host KD-tree), and 'nearest_host' must
+        force scipy regardless of backend."""
         import jax
 
         import auromat_tpu.ops.regrid as regrid
@@ -123,9 +123,9 @@ class TestResample:
         real = regrid.bin_nearest
         monkeypatch.setattr(regrid, "bin_nearest",
                             lambda *a, **k: calls.append(1) or real(*a, **k))
-        monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
         m_auto = resample(mapping, px_per_deg=2, method="nearest")
-        assert calls, "nearest did not route to the device path on TPU"
+        assert calls, "nearest did not route to the device path on a GPU"
         m_dev = resample(mapping, px_per_deg=2, method="nearest_device")
         assert np.array_equal(
             np.asarray(m_auto.img_unmasked, np.float64),
@@ -138,7 +138,7 @@ class TestResample:
 
     @pytest.mark.slow
     def test_linear_device_matches_scipy_shape(self):
-        """The TPU linear path (Newton mesh inversion + bilinear sampling,
+        """The device linear path (Newton mesh inversion + bilinear sampling,
         ops.regrid.interp_linear_structured) against the host scipy
         Delaunay path: plate-carree regular, invariants hold, and its
         valid-cell set is (up to the documented <=1-cell NaN band at the

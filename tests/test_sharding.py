@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 from numpy.testing import assert_allclose
 
+from auromat_tpu.backend import GPU_BIN_METHOD
 from auromat_tpu.io import fits
 from auromat_tpu.coordinates.wcs import TanWcs
 from auromat_tpu.ops.georef import DynGeorefParams, GeorefParams, georef_latlon_dyn
@@ -213,33 +214,32 @@ class TestGridShardedMosaic:
         # padding rows past n_lat are empty
         assert np.asarray(count)[grid.n_lat :].sum() == 0
 
-    def test_pallas_binning_matches_sorted(self):
-        """bin_method='pallas' routes the flagship fused-path kernel into
-        the grid-sharded mosaic (VERDICT r2 item 1): banded counts and
-        integer imagery channels must match the sorted variant bit-exactly;
-        elevation differs only by the sorted path's own f32 prefix-sum
-        error (the kernel's limb-split elevation sums are the more
-        accurate side — see ops/regrid_pallas.py)."""
+    def test_gpu_route_binning_matches_sorted(self):
+        """The GPU binning route (scatter-add, binned once into the
+        band-padded grid and sliced per chunk) through the grid-sharded
+        mosaic: banded counts and integer imagery channels must match the
+        sorted variant bit-exactly; elevation differs only by the sorted
+        path's own f32 prefix-sum error."""
         grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
         mesh = make_mesh(dp=4, sp=2)
         from auromat_tpu.parallel import make_grid_sharded_mosaic_step
 
         B, h, w = 4, 64, 128
         params = _burst(B, h, w)
-        # integer-valued imagery (the kernel's uint8 channel contract)
+        # integer-valued imagery (uint8 frames)
         imgs = np.random.default_rng(7).integers(
             0, 256, (B, h, w, 3)).astype(np.float32)
         imgs[0, :4, :4] = np.nan  # NaN-masked pixels contribute 0
         dyn = DynGeorefParams.stack(params, dtype=np.float32)
         outs = {}
-        for method in ("sorted", "pallas"):
+        for method in ("sorted", GPU_BIN_METHOD):
             step = make_grid_sharded_mosaic_step(
                 mesh, grid, h, w, channels=3, dtype=np.float32,
-                bin_method=method, interpret=True)
+                bin_method=method)
             count, means = step(dyn, imgs)
             outs[method] = (np.asarray(count), np.asarray(means))
         cs, ms = outs["sorted"]
-        cp, mp = outs["pallas"]
+        cp, mp = outs[GPU_BIN_METHOD]
         assert cp.sum() > 0
         assert np.array_equal(cp, cs)
         assert np.array_equal(np.isnan(mp), np.isnan(ms))
@@ -248,46 +248,40 @@ class TestGridShardedMosaic:
         el_ok = ~np.isnan(ms[..., 3])
         assert_allclose(mp[..., 3][el_ok], ms[..., 3][el_ok], atol=0.01)
 
-    @pytest.mark.slow
-    def test_pallas_multi_slab_matches_single_call(self):
-        """A slab budget small enough to force the lat-slab loop (with its
-        runtime empty-slab skipping via lax.cond) inside shard_map must
-        reproduce the single-call pallas result bit-exactly — this is the
-        mission-scale (config-5 class) configuration where the grid
-        accumulator exceeds VMEM and only some slabs hold samples."""
-        grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
-        mesh = make_mesh(dp=4, sp=2)
-        from auromat_tpu.parallel import make_grid_sharded_mosaic_step
-
-        B, h, w = 4, 64, 128
-        params = _burst(B, h, w)
-        imgs = np.random.default_rng(9).integers(
-            0, 256, (B, h, w, 3)).astype(np.float32)
-        dyn = DynGeorefParams.stack(params, dtype=np.float32)
-        outs = {}
-        for budget in (None, 200_000):  # None = single call; tiny = slabs
-            step = make_grid_sharded_mosaic_step(
-                mesh, grid, h, w, channels=3, dtype=np.float32,
-                bin_method="pallas", interpret=True,
-                slab_budget_bytes=budget)
-            count, means = step(dyn, imgs)
-            outs[budget] = (np.asarray(count), np.asarray(means))
-        c1, m1 = outs[None]
-        cn, mn = outs[200_000]
-        assert c1.sum() > 0
-        assert np.array_equal(cn, c1)
-        assert np.array_equal(np.isnan(mn), np.isnan(m1))
-        ok = ~np.isnan(m1)
-        assert np.array_equal(mn[ok], m1[ok])
-
-    def test_pallas_binning_rejects_bad_channel_contract(self):
+    def test_rejects_unknown_bin_method(self):
         from auromat_tpu.parallel import make_grid_sharded_mosaic_step
 
         grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
         mesh = make_mesh(dp=4, sp=2)
-        with pytest.raises(ValueError, match="channel contract"):
-            make_grid_sharded_mosaic_step(mesh, grid, 64, 128, channels=4,
+        with pytest.raises(ValueError, match="unknown bin_method"):
+            make_grid_sharded_mosaic_step(mesh, grid, 64, 128,
                                           bin_method="pallas")
+
+    @pytest.mark.parametrize("n_dev", [1, 8])
+    def test_default_route_is_the_backend_route(self, n_dev, monkeypatch):
+        """bin_method=None takes auromat_tpu.backend.mean_bin_method():
+        the GPU route under a (patched) GPU backend — identical banded
+        output to naming that route — on 1 device (no reduce-scatter) and
+        on the 8-device mesh."""
+        import auromat_tpu.backend as backend
+        from auromat_tpu.parallel import make_grid_sharded_mosaic_step
+
+        grid = fixed_grid(2, -89.0, 89.0, -179.0, 179.0)
+        mesh = make_mesh(jax.devices()[:n_dev], dp=n_dev, sp=1)
+        B, h, w = n_dev, 64, 128
+        dyn = DynGeorefParams.stack(_burst(B, h, w), dtype=np.float32)
+        imgs = np.random.default_rng(3).integers(
+            0, 256, (B, h, w, 3)).astype(np.float32)
+        named = make_grid_sharded_mosaic_step(
+            mesh, grid, h, w, dtype=np.float32, bin_method=GPU_BIN_METHOD)
+        monkeypatch.setattr(backend, "on_gpu", lambda: True)
+        auto = make_grid_sharded_mosaic_step(mesh, grid, h, w,
+                                             dtype=np.float32)
+        c1, m1 = (np.asarray(a) for a in named(dyn, imgs))
+        c2, m2 = (np.asarray(a) for a in auto(dyn, imgs))
+        assert c1.sum() > 0
+        assert np.array_equal(c1, c2)
+        assert np.array_equal(m1, m2, equal_nan=True)
 
     def test_chunking_equivalence(self):
         # different chunk_rows must not change the result
@@ -456,17 +450,17 @@ class TestConfig5Scale:
         ratio = got[8] / got[2]
         assert ratio < 0.5, ratio  # full-grid psum would be 1.0
 
-    def test_global_005deg_mosaic_pallas(self):
-        """Config-5 scale x Pallas per-shard binning COMBINED (VERDICT r3
-        item 3): the production configuration — the 0.05 deg global grid
-        through make_grid_sharded_mosaic_step(bin_method='pallas') — on the
+    def test_global_005deg_mosaic_gpu_route(self):
+        """Config-5 scale x the GPU binning route COMBINED: the production
+        configuration — the 0.05 deg global grid through
+        make_grid_sharded_mosaic_step(bin_method=GPU_BIN_METHOD) — on the
         8-device mesh, gated against the sorted path at the same full
         3599x7199 grid shape, plus the documented memory trade-off
-        (parallel/sharding.py: the pallas branch's per-device binning
+        (parallel/sharding.py: the dense route's per-device binning
         accumulator is ~the full padded grid rather than ~1/n_dev of it).
 
-        Reduced frame size keeps interpret-mode cost sane; the grid — the
-        thing whose scale is under test — is full size.
+        Reduced frame size keeps the CPU cost sane; the grid — the thing
+        whose scale is under test — is full size.
         """
         from auromat_tpu.parallel import make_grid_sharded_mosaic_step
 
@@ -481,7 +475,7 @@ class TestConfig5Scale:
 
         step_p = make_grid_sharded_mosaic_step(
             mesh, grid, h, w, channels=3, dtype=np.float32,
-            bin_method="pallas", interpret=True)
+            bin_method=GPU_BIN_METHOD)
         compiled = step_p.lower(dyn, imgs).compile()
         ma = compiled.memory_analysis()
         full_grid_bytes = grid.n_lat * grid.n_lon * 5 * 4  # count+RGB+elev
@@ -508,8 +502,7 @@ class TestConfig5Scale:
         assert np.array_equal(np.isnan(mp), np.isnan(ms))
         occ = cp > 0
         # counts + uint8 RGB means bit-exact; elevation within the sorted
-        # path's own f32 prefix-sum error class (see CLAUDE.md r2 notes:
-        # the kernel limb-split is the MORE accurate side)
+        # path's own f32 prefix-sum error class
         assert np.array_equal(mp[occ][:, :3], ms[occ][:, :3])
         assert_allclose(mp[occ][:, 3], ms[occ][:, 3], rtol=0, atol=5e-2)
 
@@ -712,9 +705,9 @@ class TestMosaicSequence:
         assert c.sum() < np.asarray(c_all)[: grid.n_lat].sum()
         assert (m[..., 3][c > 0] >= thr).all()
 
-    def test_pallas_binning_small_grid(self):
-        """The production bin_method='pallas' through mosaic_sequence
-        (interpret mode on the CPU mesh), padding included."""
+    def test_gpu_route_binning_small_grid(self):
+        """The GPU binning route through mosaic_sequence on the CPU mesh,
+        padding included."""
         from auromat_tpu.parallel import make_mesh, mosaic_sequence
 
         B, h, w = 3, 64, 128
@@ -724,7 +717,7 @@ class TestMosaicSequence:
         grid = fixed_grid(2, 30.0, 75.0, -140.0, -60.0)
         mesh = make_mesh(dp=2, sp=4)
         cp, mp = mosaic_sequence(mesh, grid, [(params, imgs)], batch=2,
-                                 bin_method="pallas", interpret=True)
+                                 bin_method=GPU_BIN_METHOD)
         cs, ms = mosaic_sequence(mesh, grid, [(params, imgs)], batch=2,
                                  bin_method="sorted")
         cp, cs, mp, ms = map(np.asarray, (cp, cs, mp, ms))
